@@ -84,7 +84,6 @@ def main():
         wrap(system.imu_solver, "process_new_keyframe", "vi_new_kf")
         wrap(system.imu_solver, "update_map", "vi_update_map")
 
-    bench._wake_tunnel()
     t0 = time.perf_counter()
     runner.run(frames)
     wall = time.perf_counter() - t0

@@ -1,16 +1,15 @@
-"""Per-substage device timing of the ORB orient+BRIEF path on the TPU.
+"""Per-substage device timing of the ORB orient+BRIEF path.
 
-Breaks the fused orient_and_brief stage (the front-end's dominant cost,
-12.43 ms per 8-frame batch in BENCH_r04) into its device substages:
+Breaks the fused orient_and_brief stage into its device substages:
 
   1. patch pull      — vmapped dynamic_slice 46x46 gather per keypoint
   2. orientation     — intensity-centroid einsum over the 31x31 disc
   3. in-patch blur   — separable 7x7 shift-add (46x46 -> 40x40)
   4. brief samples   — 30 unrolled static column-takes + where-accumulate
-  5. brief as matmul — candidate MXU reformulation: one (N,1600)@(1600,7680)
+  5. brief as matmul — candidate matmul reformulation: one (N,1600)@(1600,7680)
                        +/-1 selection matmul + per-row bin pick
 
-Run on the real TPU:  python scripts/profile_orb_substages.py
+Run on the device:  python scripts/profile_orb_substages.py
 """
 
 import time
@@ -106,7 +105,7 @@ def main():
 
     ms, bits_mm = timeit(brief_mm, flat, ang)
     agree = float(jnp.mean((bits_mm == bits_now).astype(jnp.float32)))
-    print(f"brief samples (MXU +/-1 matmul): {ms:.3f} ms  "
+    print(f"brief samples (+/-1 matmul): {ms:.3f} ms  "
           f"(bit agreement {agree:.6f})")
 
     # --- 5b. matmul brief, one-hot bin pick (no take_along_axis) -----------
@@ -122,7 +121,7 @@ def main():
 
     ms, bits_oh = timeit(brief_mm_oh, flat, ang)
     agree = float(jnp.mean((bits_oh == bits_now).astype(jnp.float32)))
-    print(f"brief samples (MXU matmul + one-hot): {ms:.3f} ms  "
+    print(f"brief samples (matmul + one-hot): {ms:.3f} ms  "
           f"(bit agreement {agree:.6f})")
 
     # --- 5c. small matmul: one-hot FIRST, then per-row (1600,512) gather ---

@@ -7,7 +7,7 @@ our own ORB front-end (ops/orb.py) from a few hundred rendered
 corner-rich scenes — real ORB descriptor statistics (oriented rBRIEF over
 intensity patches), not uniform random bits.  Output:
 ``snakeslam_tpu/data/orbvoc_synth.npz`` (k=10, levels=4, 10k words —
-sized for the dense-vector MXU retrieval in loop/keyframe_database.py).
+sized for the dense-vector matmul retrieval in loop/keyframe_database.py).
 
 Run:  python scripts/train_vocab.py  [n_images]
 """

@@ -1,6 +1,6 @@
 """Camera models: pinhole intrinsics, Brown-Conrady distortion, stereo.
 
-TPU-native replacement for saiga's ``IntrinsicsPinholed`` / ``Distortion`` /
+JAX replacement for saiga's ``IntrinsicsPinholed`` / ``Distortion`` /
 ``StereoCamera4`` (reference: Snake/System/SnakeGlobal.h:94-103).  All ops are
 batched jnp functions over normalized image coordinates; undistortion is the
 same Gauss-Newton inverse the reference applies per keypoint

@@ -1,9 +1,9 @@
 """SO3 / SE3 / Sim3 Lie-group operations, batched and jit-friendly.
 
-TPU-native replacement for the Sophus types used throughout the reference
+JAX replacement for the Sophus types used throughout the reference
 (``SE3, DSim3, Vec3`` — reference: Snake/System/SnakeGlobal.h:33-43).  Poses
 are stored as homogeneous ``(..., 4, 4)`` float matrices so that composition
-is a plain matmul (MXU-friendly) and everything vmaps.  Sim3 is represented
+is a plain matmul and everything vmaps.  Sim3 is represented
 as a 4x4 with scaled rotation ``s*R`` in the upper-left block.
 
 All functions accept arbitrary leading batch dimensions.

@@ -16,6 +16,8 @@ from pathlib import Path
 
 import numpy as np
 
+from snakeslam_tpu.utils.png import read_png, to_gray
+
 
 @dataclass
 class RawFrame:
@@ -30,9 +32,34 @@ class RawFrame:
 
 
 def _load_gray(path: Path) -> np.ndarray:
-    from PIL import Image
+    """8-bit grayscale of an image file.  PNG decodes with the package's
+    own reader; JPEG (ScanNet color frames) needs Pillow."""
+    if Path(path).suffix.lower() in (".jpg", ".jpeg"):
+        from PIL import Image
 
-    return np.asarray(Image.open(path).convert("L"))
+        return np.asarray(Image.open(path).convert("L"))
+    return to_gray(read_png(path))
+
+
+def _read_yaml_keys(path: Path, keys) -> dict:
+    """Top-level ``key: value`` entries of a flat YAML file (EuRoC/ASL
+    sensor.yaml); a value is a number or a [..] list of numbers, and a
+    list may span lines.  Keys that are absent are left out."""
+    out = {}
+    lines = Path(path).read_text().splitlines()
+    for k, line in enumerate(lines):
+        key, sep, rest = line.partition(":")
+        if not sep or key.strip() != key or key not in keys:
+            continue
+        text = rest.split("#")[0].strip()
+        j = k
+        while text.startswith("[") and "]" not in text:
+            j += 1
+            text += " " + lines[j].split("#")[0].strip()
+        items = [v for v in text.strip("[]").replace(",", " ").split() if v]
+        vals = [float(v) for v in items]
+        out[key] = vals if text.startswith("[") else vals[0]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -110,10 +137,8 @@ class EurocDataset:
     def _read_calib(path: Path):
         if not path.exists():
             return None
-        import yaml
-
-        with open(path) as f:
-            y = yaml.safe_load(f)
+        y = _read_yaml_keys(path, ("intrinsics", "distortion_coefficients",
+                                   "resolution"))
         out = {}
         if "intrinsics" in y:
             fx, fy, cx, cy = y["intrinsics"]
@@ -121,7 +146,7 @@ class EurocDataset:
         if "distortion_coefficients" in y:
             out["distortion"] = list(y["distortion_coefficients"])
         if "resolution" in y:
-            out["width"], out["height"] = y["resolution"]
+            out["width"], out["height"] = (int(v) for v in y["resolution"])
         return out or None
 
     def __len__(self):
@@ -206,9 +231,7 @@ class TumRgbdDataset:
                else min(len(self.pairs), self.start + self.max_frames))
         for i in range(self.start, end):
             ts, rgb_path, depth_path = self.pairs[i]
-            from PIL import Image
-
-            depth_raw = np.asarray(Image.open(depth_path))
+            depth_raw = read_png(depth_path)
             yield RawFrame(
                 frame_id=i - self.start,
                 timestamp=ts,
@@ -321,8 +344,6 @@ class ScannetDataset:
         return n if self.max_frames < 0 else min(n, self.max_frames)
 
     def __iter__(self):
-        from PIL import Image
-
         end = (len(self.images) if self.max_frames < 0
                else min(len(self.images), self.start + self.max_frames))
         for i in range(self.start, end):
@@ -334,7 +355,7 @@ class ScannetDataset:
             )
             dp = self.root / "depth" / f"{p.stem}.png"
             if dp.exists():
-                frame.depth = (np.asarray(Image.open(dp)).astype(np.float64)
+                frame.depth = (read_png(dp).astype(np.float64)
                                * self.DEPTH_SCALE)
             yield frame
 

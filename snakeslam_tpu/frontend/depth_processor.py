@@ -9,7 +9,7 @@ gauss_radius=4, hyst_min=7, hyst_max=9).
 
 The reference implementation is a serial CPU scan; this one is a stack of
 fixed-shape convolutions so XLA can fuse the whole filter into a couple of
-HBM passes on TPU:
+passes over device memory:
 
 1. **Noise model** — structured-light / stereo depth quantization grows
    quadratically with depth: one disparity step at depth ``z`` spans
@@ -97,7 +97,7 @@ def process_depth(
 
     # weak pixels survive when 4-connected to a strong pixel (grow the
     # strong region through the weak band a few steps — lax.fori over a
-    # fused dilation, cheap VPU work)
+    # fused dilation, cheap elementwise work)
     def grow(_, s):
         n = (
             _shift(s.astype(jnp.float32), 1, 0, 0.0)

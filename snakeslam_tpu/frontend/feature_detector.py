@@ -55,8 +55,6 @@ class FeatureDetector:
             levels=self.s.fd_levels,
             scale_factor=self.s.fd_scale_factor,
             threshold=float(self.s.fd_ini_th_fast),
-            use_pallas=(None if self.s.fd_use_pallas < 0
-                        else bool(self.s.fd_use_pallas)),
         )
         valid = np.asarray(feats.valid)
         uv = np.asarray(feats.uv)[valid].astype(np.float64)

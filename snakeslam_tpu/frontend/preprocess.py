@@ -61,7 +61,7 @@ class Preprocess:
                      row_tolerance: float = 2.0, max_hamming: int = 60):
         """Rectified stereo matching: left keypoints vs right keypoints with
         row / octave / disparity gates (Preprocess.cpp:122-242), evaluated as
-        one dense masked Hamming matrix on the MXU.
+        one dense masked Hamming matrix (a matrix product).
 
         Fills frame.right and frame.depth for matched left features.
         """

@@ -95,8 +95,8 @@ def coarse_step(
     ok = (n_matches >= COARSE_MIN_INLIERS_LAST_FRAME) & (
         n_inl >= COARSE_MIN_INLIERS_LAST_FRAME
     )
-    # single flat output: one device->host transfer per frame matters when
-    # the host link is latency-bound (remote TPU tunnels)
+    # single flat output: one device->host transfer per frame, since each
+    # transfer costs latency regardless of its size
     N = frame.uv.shape[0]
     packed = jnp.concatenate([
         T.reshape(-1).astype(jnp.float32),                    # [0:16]

@@ -1,10 +1,10 @@
 """Bag-of-binary-words: vocabulary training, transform, and scoring.
 
-TPU-native replacement for saiga's ``MiniBow2::TemplatedVocabulary``
+JAX replacement for saiga's ``MiniBow2::TemplatedVocabulary``
 (reference: Snake/LocalMapping/Bow.h:9-17, Frame.cpp:36-42 transform,
 LoopDetector.cpp:73 scoring).  The tree descent is batched: at each level
 every descriptor computes Hamming distance to its current node's k children
-via one MXU matmul and takes the argmin — no per-descriptor recursion.  BoW
+via one matmul and takes the argmin — no per-descriptor recursion.  BoW
 vectors are dense (vocabulary_size,) tf-idf arrays, so frame-against-
 database scoring is a single matrix product.
 
@@ -216,9 +216,9 @@ def transform_np(voc: Vocabulary, desc_bits: np.ndarray,
                  valid: np.ndarray | None = None):
     """Host-side vocabulary transform (same descent as ``transform``).
 
-    The tree descent over ~1k descriptors is ~2 MFLOP — far below the cost
-    of one remote-TPU round trip, so the per-keyframe BoW vector is
-    computed on host.  Numpy copies of the tree are cached keyed by the
+    The tree descent over ~1k descriptors is ~2 MFLOP — tiny next to a
+    blocking device call, so the per-keyframe BoW vector is computed on
+    host.  Numpy copies of the tree are cached keyed by the
     node array object itself (a strong reference pins it, so its id can
     never be recycled onto a different vocabulary's array)."""
     cached = _NP_VOC_CACHE.get(id(voc.node_bits))

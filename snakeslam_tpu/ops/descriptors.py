@@ -1,6 +1,6 @@
-"""ORB descriptor bit manipulation + Hamming distance on the MXU.
+"""ORB descriptor bit manipulation + Hamming distance as a matrix product.
 
-TPU-native replacement for saiga's Hamming ``distance()`` / popcount loops
+JAX replacement for saiga's Hamming ``distance()`` / popcount loops
 (reference: Snake/Tracking/SnakeORBMatcher.cpp:492 and the
 ``BruteForceMatcher<DescriptorORB>`` at Snake/Tracking/TrackingCoarse.cpp:350).
 
@@ -43,7 +43,7 @@ def unpack_bits(packed: jax.Array) -> jax.Array:
 
 
 def hamming_matrix(bits_a: jax.Array, bits_b: jax.Array) -> jax.Array:
-    """Pairwise Hamming distances via MXU matmul.
+    """Pairwise Hamming distances via a bf16 matmul.
 
     Args:
       bits_a: (N, 256) bit planes in {0,1} (any integer/float dtype).

@@ -1,12 +1,11 @@
-"""Small-matrix linear algebra tuned for TPU.
+"""Small-matrix linear algebra for SLAM problem sizes.
 
 XLA lowers ``jnp.linalg.inv`` / ``jnp.linalg.solve`` to LU custom calls
-whose fixed overhead dwarfs the arithmetic at SLAM problem sizes (measured
-on v5e: batched (2048,3,3) inv = 14.6 ms vs 1.4 ms closed-form; a 192x192
-LU solve = 18.6 ms vs 2.2 ms Cholesky).  Every normal-equation matrix in
+whose fixed overhead can dwarf the arithmetic at SLAM problem sizes (their
+cost on the GPU is not measured yet).  Every normal-equation matrix in
 this codebase is symmetric positive (semi-)definite after damping, so the
-closed-form adjugate (3x3) and Cholesky (anything bigger) are both faster
-and at least as stable.
+closed-form adjugate (3x3) and Cholesky (anything bigger) fuse with the
+surrounding program and are at least as stable.
 """
 
 from __future__ import annotations

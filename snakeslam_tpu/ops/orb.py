@@ -1,6 +1,6 @@
 """ORB feature extraction: pyramid, FAST, NMS, orientation, rBRIEF.
 
-TPU-native replacement for saiga's ``ORBExtractor`` / ``ORBExtractorGPU``
+Device replacement for saiga's ``ORBExtractor`` / ``ORBExtractorGPU``
 (reference call sites: Snake/Preprocess/FeatureDetector.cpp:14-17,28-42,
 113-125).  The design is data-parallel end to end — no octree recursion, no
 per-keypoint scalar loops:
@@ -14,9 +14,6 @@ per-keypoint scalar loops:
   * Orientation by intensity centroid over a radius-15 disc; descriptors by
     rotated BRIEF over a 7x7-box-smoothed image.  Both operate on gathered
     per-keypoint patches (vmap of dynamic_slice), fixed keypoint count.
-
-A Pallas kernel for the FAST score stage lives in ops/orb_pallas.py; this
-module is the portable XLA path and the numerical reference for it.
 """
 
 from __future__ import annotations
@@ -38,47 +35,47 @@ PATCH_R = 15          # orientation disc radius (ORB HALF_PATCH_SIZE)
 DESC_BITS = 256
 
 
-def _ring_views(img: jax.Array):
-    """16 shifted copies of the image, aligned so position p reads the ring
-    pixel p + (dx, dy).  Uses jnp.roll (border pixels wrap; masked later)."""
-    views = []
-    for dx, dy in FAST_RING:
-        views.append(jnp.roll(img, shift=(-dy, -dx), axis=(0, 1)))
-    return jnp.stack(views)  # (16, H, W)
-
-
 def fast_score(img: jax.Array, threshold: float):
     """FAST-16 segment test + SAD score, fully vectorized.
+
+    The 16 ring pixels are read as shifted slices of one edge-padded
+    image and folded into running bit masks and sums, so XLA fuses the
+    whole test into a single elementwise pass (no (16, H, W) stack is
+    materialized).
 
     Args:
       img: (H, W) float32 grayscale.
     Returns (score (H, W) float32, is_corner (H, W) bool); borders (3 px)
     are zeroed.
     """
-    ring = _ring_views(img)                      # (16, H, W)
-    center = img[None]
-    bright = ring > center + threshold
-    dark = ring < center - threshold
+    H, W = img.shape
+    pad = jnp.pad(img, 3, mode="edge")
+    hi = img + threshold
+    lo = img - threshold
+    bits_b = jnp.zeros((H, W), jnp.int32)
+    bits_d = jnp.zeros((H, W), jnp.int32)
+    sum_b = jnp.zeros((H, W), img.dtype)
+    sum_d = jnp.zeros((H, W), img.dtype)
+    for k, (dx, dy) in enumerate(FAST_RING):
+        ring = pad[3 + dy:3 + dy + H, 3 + dx:3 + dx + W]
+        bright = ring > hi
+        dark = ring < lo
+        bits_b = bits_b | (bright.astype(jnp.int32) << k)
+        bits_d = bits_d | (dark.astype(jnp.int32) << k)
+        sum_b = sum_b + jnp.where(bright, ring - img - threshold, 0.0)
+        sum_d = sum_d + jnp.where(dark, img - ring - threshold, 0.0)
 
-    def arc9(mask):
-        # pack 16 bools into an int32 bitmask and test for 9 contiguous
-        bits = jnp.sum(
-            mask.astype(jnp.int32) << jnp.arange(16, dtype=jnp.int32)[:, None, None],
-            axis=0,
-        )
+    def arc9(bits):
+        # 9 contiguous set bits among 16, circularly
         m = bits | (bits << 16)  # duplicate so rotation = shift
         acc = m
         for k in range(1, 9):
             acc = acc & (m >> k)
         return (acc & 0xFFFF) != 0
 
-    is_corner = arc9(bright) | arc9(dark)
-    db = jnp.where(bright, ring - center - threshold, 0.0)
-    dd = jnp.where(dark, center - ring - threshold, 0.0)
-    score = jnp.maximum(jnp.sum(db, axis=0), jnp.sum(dd, axis=0))
-    score = jnp.where(is_corner, score, 0.0)
+    is_corner = arc9(bits_b) | arc9(bits_d)
+    score = jnp.where(is_corner, jnp.maximum(sum_b, sum_d), 0.0)
 
-    H, W = img.shape
     yy = jnp.arange(H)[:, None]
     xx = jnp.arange(W)[None, :]
     border = (yy >= 3) & (yy < H - 3) & (xx >= 3) & (xx < W - 3)
@@ -111,9 +108,8 @@ def select_keypoints(score: jax.Array, n_keypoints: int, cell: int = 32,
         Hc * Wc, cell * cell
     )
     # per-cell top-k as `per_cell` argmax+suppress rounds: NMS leaves cells
-    # sparse, and k max-reductions lower to cheap VPU passes where a
-    # batched lax.top_k pays a per-row sort (measured 9.7 -> ~1 ms per
-    # 8-frame batch at 480x752)
+    # sparse, and k max-reductions are cheap elementwise passes where a
+    # batched lax.top_k pays a per-row sort
     vals_l, idx_l = [], []
     b = blocks
     col = jnp.arange(blocks.shape[1])[None, :]
@@ -217,11 +213,11 @@ def _interp_matrix(n_out: int, n_in: int) -> np.ndarray:
 
 
 def _resize_matmul(imgs: jax.Array, h: int, w: int) -> jax.Array:
-    """(B, H, W) -> (B, h, w) bilinear downscale as two MXU matmuls.
+    """(B, H, W) -> (B, h, w) bilinear downscale as two matmuls.
 
-    jax.image.resize lowers to gathers on TPU (~4 ms per 8x480x752 level);
-    the same interpolation as dense banded matrices rides the systolic
-    array (~0.3 GFLOP per level batch — noise)."""
+    The same interpolation as jax.image.resize, written as dense banded
+    matrices so it runs as matrix products instead of gathers (~0.3 GFLOP
+    per level batch)."""
     B, H, W = imgs.shape
     Ah = jnp.asarray(_interp_matrix(h, H))
     Aw = jnp.asarray(_interp_matrix(w, W))
@@ -234,10 +230,9 @@ def _resize_matmul(imgs: jax.Array, h: int, w: int) -> jax.Array:
 def box_blur_batch(imgs: jax.Array, k: int = 7) -> jax.Array:
     """(B, H, W) k x k box filter (separable) — the BRIEF pre-smoothing.
 
-    Shift-and-add, not conv: a 1-channel conv_general_dilated cannot tile
-    onto the MXU and lowers ~18x slower on TPU than 2k fused VPU adds
-    (measured 59 -> 3 ms on an 8x480x752 batch).  Zero padding keeps the
-    conv 'SAME' semantics this replaced."""
+    Shift-and-add, not conv: a 1-channel conv_general_dilated has no
+    matrix work to offer, while 2k fused adds are one elementwise pass.
+    Zero padding keeps the conv 'SAME' semantics this replaced."""
     r = k // 2
     scale = imgs.dtype.type(1.0 / k)
     p = jnp.pad(imgs, ((0, 0), (r, r), (0, 0)))
@@ -283,14 +278,13 @@ def brief_descriptors(img_blur: jax.Array, uv: jax.Array,
                       angle_deg: jax.Array) -> jax.Array:
     """Rotated BRIEF: (N, 256) bits in {0, 1} (int8).
 
-    TPU-shaped sampling: angles quantize to 30 bins of 12 deg (the ORB
+    Static sampling: angles quantize to 30 bins of 12 deg (the ORB
     recipe), so every bin's rotated sample positions are STATIC offsets
     into a per-keypoint 40x40 patch.  Patches come from one block gather
-    (vmapped dynamic_slice — ~10x the throughput of elementwise gathers
-    on TPU), then 30 unrolled static column-takes select each bin's
-    samples and a where-accumulate keeps the right bin per keypoint.
-    Replaces a 512-index random gather per keypoint that ran at ~9 ns
-    per element and dominated the whole extractor.  Near the border the
+    (vmapped dynamic_slice), then 30 unrolled static column-takes select
+    each bin's samples and a where-accumulate keeps the right bin per
+    keypoint, instead of a 512-index random gather per keypoint.  Near the
+    border the
     clamped patch off-centers the pattern (same policy as orientations);
     descriptors stay deterministic and backend-independent."""
     H, W = img_blur.shape
@@ -350,8 +344,7 @@ def orient_and_brief(img: jax.Array, uv: jax.Array):
                             (0, max(0, _BRIEF_SRC - W))))
     src = _extract_patches(img, uv, _BRIEF_SRC)          # (N, 46, 46)
     # materialize the patch pull: XLA's producer fusion would otherwise
-    # RE-GATHER the source patches inside every consumer — measured 7.5 ms
-    # vs 0.09 ms for the materialized pipeline on an 8x400 batch (v5e)
+    # RE-GATHER the source patches inside every consumer
     src = jax.lax.optimization_barrier(src)
     center = src[:, _CENTER_OFF:_CENTER_OFF + _PATCH,
                  _CENTER_OFF:_CENTER_OFF + _PATCH]       # (N, 31, 31)
@@ -385,7 +378,7 @@ class OrbFeatures(NamedTuple):
 
 @functools.partial(
     jax.jit, static_argnames=("n_features", "levels", "scale_factor",
-                              "threshold", "use_pallas"),
+                              "threshold"),
 )
 def extract_orb(
     image: jax.Array,
@@ -393,25 +386,21 @@ def extract_orb(
     levels: int = 4,
     scale_factor: float = 1.2,
     threshold: float = 20.0,
-    use_pallas: bool | None = None,
 ):
     """Full ORB pipeline over an image pyramid.
 
     Args:
       image: (H, W) grayscale float32 in [0, 255].
-      use_pallas: FAST via the banded Pallas kernel (default: on when the
-        backend is a TPU — ~5x the XLA fast_score per level; see
-        ops/orb_pallas.py).
     Returns OrbFeatures with n_features slots (coords in level-0 pixels).
     """
     out = extract_orb_batch(image[None], n_features, levels, scale_factor,
-                            threshold, use_pallas)
+                            threshold)
     return OrbFeatures(*[x[0] for x in out])
 
 
 @functools.partial(
     jax.jit, static_argnames=("n_features", "levels", "scale_factor",
-                              "threshold", "use_pallas"),
+                              "threshold"),
 )
 def extract_orb_batch(
     images: jax.Array,
@@ -419,20 +408,15 @@ def extract_orb_batch(
     levels: int = 4,
     scale_factor: float = 1.2,
     threshold: float = 20.0,
-    use_pallas: bool | None = None,
 ):
     """Batched ORB: (B, H, W) images -> OrbFeatures with leading B.
 
     The throughput path of the front-end (the analog of the reference's
     CUDA extractor pipelining frames, FeatureDetector.cpp:28-42,119): a
-    whole frame window is extracted in ONE dispatch — the Pallas FAST
-    kernel takes the batch stacked vertically in a single launch, and
-    every other stage (resize, NMS, selection, orientation, BRIEF) is
-    batch-vectorized XLA, so per-dispatch overhead and small-op latency
-    amortize over B frames.
+    whole frame window is extracted in ONE dispatch — every stage (resize,
+    FAST, NMS, selection, orientation, BRIEF) is batch-vectorized XLA, so
+    per-dispatch overhead and small-op latency amortize over B frames.
     """
-    if use_pallas is None:
-        use_pallas = jax.default_backend() not in ("cpu", "gpu")
     B, H, W = images.shape
     # per-level feature budget ~ geometric (like the reference's
     # distribution over octaves)
@@ -441,6 +425,8 @@ def extract_orb_batch(
     budgets = [max(int(round(n_features * v / total)), 8) for v in inv]
     budgets[0] += n_features - sum(budgets)
 
+    # stage names (jax.named_scope) let a profiler trace attribute device
+    # time to resize / fast / nms / select / orient_brief / compact
     all_feats = []
     imgs_l = images
     for lvl in range(levels):
@@ -448,18 +434,18 @@ def extract_orb_batch(
         if lvl > 0:
             h = int(round(H / scale))
             w = int(round(W / scale))
-            imgs_l = _resize_matmul(images, h, w)
-        if use_pallas:
-            from snakeslam_tpu.ops.orb_pallas import fast_score_pallas_batch
-
-            score, _ = fast_score_pallas_batch(imgs_l, threshold)
-        else:
+            with jax.named_scope("resize"):
+                imgs_l = _resize_matmul(images, h, w)
+        with jax.named_scope("fast"):
             score, _ = jax.vmap(lambda im: fast_score(im, threshold))(imgs_l)
-        score = jax.vmap(nms3)(score)
-        uv, resp, valid = jax.vmap(
-            lambda s: select_keypoints(s, budgets[lvl])
-        )(score)
-        ang, bits = jax.vmap(orient_and_brief)(imgs_l, uv)
+        with jax.named_scope("nms"):
+            score = jax.vmap(nms3)(score)
+        with jax.named_scope("select"):
+            uv, resp, valid = jax.vmap(
+                lambda s: select_keypoints(s, budgets[lvl])
+            )(score)
+        with jax.named_scope("orient_brief"):
+            ang, bits = jax.vmap(orient_and_brief)(imgs_l, uv)
         all_feats.append(
             (uv * scale, resp,
              jnp.full(uv.shape[:2], lvl, dtype=jnp.int32), ang, bits, valid)
@@ -473,11 +459,12 @@ def extract_orb_batch(
     valid = jnp.concatenate([f[5] for f in all_feats], axis=1)
 
     # compact to exactly n_features slots per frame, strongest first
-    order_key = jnp.where(valid, resp, -1.0)
-    _, idx = jax.lax.top_k(order_key, n_features)      # (B, n_features)
-    take = jax.vmap(lambda x, i: x[i])
-    return OrbFeatures(
-        uv=take(uv, idx), response=take(resp, idx), octave=take(octv, idx),
-        angle=take(ang, idx), desc_bits=take(bits, idx),
-        valid=take(valid, idx),
-    )
+    with jax.named_scope("compact"):
+        order_key = jnp.where(valid, resp, -1.0)
+        _, idx = jax.lax.top_k(order_key, n_features)  # (B, n_features)
+        take = jax.vmap(lambda x, i: x[i])
+        return OrbFeatures(
+            uv=take(uv, idx), response=take(resp, idx),
+            octave=take(octv, idx), angle=take(ang, idx),
+            desc_bits=take(bits, idx), valid=take(valid, idx),
+        )

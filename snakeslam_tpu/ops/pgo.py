@@ -1,12 +1,12 @@
 """Pose-graph optimization over SE3 or Sim3, jit-compiled Gauss-Newton.
 
-TPU-native replacement for EigenRecursive's ``PGORec`` / ``PGOSim3Rec``
+JAX replacement for EigenRecursive's ``PGORec`` / ``PGOSim3Rec``
 (reference: Snake/LoopClosing/LoopClosingPGO.cpp:7-10,120-150): vertices are
 keyframe poses, edges are relative-pose measurements (spanning tree +
 covisibility + loop closure); the Sim3 variant absorbs monocular scale
 drift.  The normal equations are assembled densely by scatter-adding
 per-edge blocks (the graph is small: V <= ~1000) and solved with one dense
-factorization — batched block work on the MXU instead of sparse recursion.
+factorization — batched block work instead of sparse recursion.
 
 Conventions: poses are world->camera (Sim3 poses carry sR); measurement
 edge_T approximates T_j @ T_i^-1; residual = log(T_j T_i^-1 edge_T^-1);

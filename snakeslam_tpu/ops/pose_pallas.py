@@ -1,30 +1,32 @@
-"""Fused Pallas pose-GN kernel: a whole robust pose refine in ONE launch.
+"""Fused pose-GN kernel (Pallas, Triton route): a whole robust pose refine
+in ONE launch.
 
 The windowed tracking scan (models/window_step.py) runs a robust
-Gauss-Newton pose refine for every frame.  Expressed in XLA that refine is
-~60 small fusion kernels per frame (Jacobian sweeps, 6x6 solve, SE3 exp,
-outlier classification), and at ~10-20 us of launch overhead per kernel the
-scan is launch-bound, not compute-bound (measured: the GN portion is >half
-of window_track device time at <1% VPU utilization).
+Gauss-Newton pose refine twice per frame inside a sequential ``lax.scan``.
+XLA expands each refine into many small fusions (Jacobian sweeps, 6x6
+solve, SE(3) exp, outlier classification), so the scan pays a kernel
+launch per fusion per frame.  This kernel runs the ENTIRE refine —
+``outer_iters`` rounds of (``inner_iters`` damped GN steps -> chi2
+outlier re-classification) — as one program (one CTA):
 
-This kernel runs the ENTIRE refine — ``outer_iters`` rounds of
-(``inner_iters`` damped GN steps -> chi2 outlier re-classification) — in
-one ``pallas_call``:
-
-  * per-feature arrays live as (N/128, 128) f32 tiles in VMEM (full VPU
-    lanes); the eight fields arrive as ONE packed (8, N/128, 128) input;
-  * the 6x6 normal equations accumulate as 27 VPU reductions;
+  * the eight per-feature fields arrive as ONE packed (8, N) input and
+    are loaded once; N is padded to a power of two (Triton's block rule)
+    with mask = 0 rows, which carry zero weight;
+  * the 6x6 normal equations and gradient accumulate as 27 block
+    reductions (structurally zero Jacobian entries are skipped);
   * the 6x6 solve, SE(3) exponential and pose composition run as scalar
-    arithmetic (a closed-form 3x3-block Schur elimination — no custom
-    calls);
-  * outputs are the refined pose row and the inlier mask.
+    arithmetic (a closed-form 3x3-block Schur elimination);
+  * outputs are the refined pose row (one 16-wide store) and the inlier
+    mask.
 
 Semantics mirror ops/pose_solver.robust_pose_refine (saiga's
 RobustPoseOptimization, reference: Snake/Tracking/PoseRefinement.h:9-10):
 left-multiplicative update, Huber weights at the mono/stereo pixel
 thresholds (SnakeGlobal.h:145-146), chi2 classification between rounds.
 The motion-prior variant stays on the XLA path (used per-frame by the
-tracker, not in the scan).
+tracker, not in the scan).  The kernel has no matrix products, so TF32
+never enters; sums are taken in another order than XLA's, which is the
+whole of the difference between the two.
 """
 
 from __future__ import annotations
@@ -34,10 +36,13 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
-from snakeslam_tpu.core import lie
 from snakeslam_tpu.core.camera import Pinhole
+
+# pose row layout of the scalar input: [0:16] row-major 4x4 pose,
+# [16:24] fx fy cx cy bf chi2_mono chi2_stereo damping, [24:32] unused
+_TC_SIZE = 32
 
 
 # ---------------------------------------------------------------------------
@@ -110,8 +115,8 @@ def _se3_exp_scalar(v, w):
     bb = jnp.where(small, 0.5 - th2 / 24.0, (1.0 - jnp.cos(th)) / (th2 + 1e-30))
     cc = jnp.where(small, 1.0 / 6.0 - th2 / 120.0,
                    (th - jnp.sin(th)) / (th2 * th + 1e-30))
-    W = ((0.0 * th, -w[2], w[1]), (w[2], 0.0 * th, -w[0]),
-         (-w[1], w[0], 0.0 * th))
+    zero = 0.0 * th
+    W = ((zero, -w[2], w[1]), (w[2], zero, -w[0]), (-w[1], w[0], zero))
     W2 = _m3m(W, W)
     eye = ((1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, 0.0, 1.0))
     R = tuple(tuple(eye[r][c] + a * W[r][c] + bb * W2[r][c]
@@ -138,29 +143,42 @@ def _gram_schmidt(R):
             (c0[2], c1[2], c2[2]))
 
 
+def _dot_rows(a, b):
+    """sum_k a[k] * b[k] over Jacobian rows whose entries may be None
+    (a structural zero): the product is dropped instead of computed.
+    Returns None when every product is a structural zero."""
+    terms = [x * y for x, y in zip(a, b) if x is not None and y is not None]
+    if not terms:
+        return None
+    out = terms[0]
+    for t in terms[1:]:
+        out = out + t
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the kernel
 # ---------------------------------------------------------------------------
 
 def _pose_refine_kernel(tc_ref, data_ref, T_out_ref, inlier_ref,
                         *, outer_iters: int, inner_iters: int):
-    fx = tc_ref[0, 16]
-    fy = tc_ref[0, 17]
-    cx = tc_ref[0, 18]
-    cy = tc_ref[0, 19]
-    bf = tc_ref[0, 20]
-    chi2_m = tc_ref[0, 21]
-    chi2_s = tc_ref[0, 22]
-    damping = tc_ref[0, 23]
+    fx = tc_ref[16]
+    fy = tc_ref[17]
+    cx = tc_ref[18]
+    cy = tc_ref[19]
+    bf = tc_ref[20]
+    chi2_m = tc_ref[21]
+    chi2_s = tc_ref[22]
+    damping = tc_ref[23]
 
-    px = data_ref[0]
-    py = data_ref[1]
-    pz = data_ref[2]
-    uo = data_ref[3]
-    vo = data_ref[4]
-    ro = data_ref[5]
-    wgt = data_ref[6]
-    msk = data_ref[7] > 0.5
+    px = data_ref[0, :]
+    py = data_ref[1, :]
+    pz = data_ref[2, :]
+    uo = data_ref[3, :]
+    vo = data_ref[4, :]
+    ro = data_ref[5, :]
+    wgt = data_ref[6, :]
+    msk = data_ref[7, :] > 0.5
 
     has_stereo = ro > 0.0
     sflag = has_stereo.astype(jnp.float32)
@@ -168,7 +186,7 @@ def _pose_refine_kernel(tc_ref, data_ref, T_out_ref, inlier_ref,
     th_cls = jnp.where(has_stereo, chi2_s, chi2_m)
     w2 = wgt * wgt
 
-    Tf0 = tuple(tc_ref[0, k] for k in range(12))  # row-major R|t (3x4)
+    Tf0 = tuple(tc_ref[k] for k in range(12))  # row-major R|t (3x4)
 
     def transform(Tf):
         X = Tf[0] * px + Tf[1] * py + Tf[2] * pz + Tf[3]
@@ -197,28 +215,31 @@ def _pose_refine_kernel(tc_ref, data_ref, T_out_ref, inlier_ref,
         wt = jnp.where(msk & z_ok & inlier, w2 * huber, 0.0)
         # Jacobian rows (J = Jp @ [I | -hat(pc)], PoseRefinement.h:52-53);
         # NOTE raw Z (not the clamped zs) in the hat-block terms, matching
-        # ops/pose_solver._residuals_jacobians
-        j0 = (fx * iz, jnp.zeros_like(iz), -fx * X * iz2,
-              -fx * X * Y * iz2, fx * Z * iz + fx * X * X * iz2,
-              -fx * Y * iz)
-        j1 = (jnp.zeros_like(iz), fy * iz, -fy * Y * iz2,
-              -fy * Z * iz - fy * Y * Y * iz2, fy * X * Y * iz2,
-              fy * X * iz)
-        j2 = (sflag * (fx * iz), jnp.zeros_like(iz),
-              sflag * ((bf - fx * X) * iz2),
-              sflag * ((bf - fx * X) * Y * iz2),
-              sflag * (fx * Z * iz + (fx * X - bf) * X * iz2),
-              sflag * (-fx * Y * iz))
+        # ops/pose_solver._residuals_jacobians.  Row k of the table below is
+        # (du, dv, dur) / d(delta_k); None marks a structural zero.
+        fxiz = fx * iz
+        fyiz = fy * iz
+        s_fxiz = sflag * fxiz
+        cols = (
+            (fxiz, None, s_fxiz),
+            (None, fyiz, None),
+            (-fx * X * iz2, -fy * Y * iz2, sflag * ((bf - fx * X) * iz2)),
+            (-fx * X * Y * iz2, -fy * Z * iz - fy * Y * Y * iz2,
+             sflag * ((bf - fx * X) * Y * iz2)),
+            (fx * Z * iz + fx * X * X * iz2, fy * X * Y * iz2,
+             sflag * (fx * Z * iz + (fx * X - bf) * X * iz2)),
+            (-fx * Y * iz, fy * X * iz, -sflag * fx * Y * iz),
+        )
+        res = (ru, rv, rr)
         H = [[None] * 6 for _ in range(6)]
         for i in range(6):
             for j in range(i, 6):
-                H[i][j] = jnp.sum(
-                    wt * (j0[i] * j0[j] + j1[i] * j1[j] + j2[i] * j2[j]))
+                d_ij = _dot_rows(cols[i], cols[j])
+                H[i][j] = 0.0 if d_ij is None else jnp.sum(wt * d_ij)
                 H[j][i] = H[i][j]
         for i in range(6):
             H[i][i] = H[i][i] + damping
-        b = tuple(jnp.sum(wt * (j0[i] * ru + j1[i] * rv + j2[i] * rr))
-                  for i in range(6))
+        b = tuple(jnp.sum(wt * _dot_rows(cols[i], res)) for i in range(6))
         d = _solve6_scalar(tuple(tuple(r) for r in H), b)
         Rd, td = _se3_exp_scalar((-d[0], -d[1], -d[2]),
                                  (-d[3], -d[4], -d[5]))
@@ -244,65 +265,65 @@ def _pose_refine_kernel(tc_ref, data_ref, T_out_ref, inlier_ref,
                        (Tf[8], Tf[9], Tf[10])))
     out = (R[0][0], R[0][1], R[0][2], Tf[3],
            R[1][0], R[1][1], R[1][2], Tf[7],
-           R[2][0], R[2][1], R[2][2], Tf[11],
-           jnp.float32(0.0), jnp.float32(0.0), jnp.float32(0.0),
-           jnp.float32(1.0))
-    for k in range(16):
-        T_out_ref[0, k] = out[k]
-    inlier_ref[:] = inlier.astype(jnp.float32)
+           R[2][0], R[2][1], R[2][2], Tf[11])
+    # one 16-wide store: scatter the 12 scalars into a vector by iota
+    # select; the last row is the constant (0, 0, 0, 1)
+    lane = jax.lax.broadcasted_iota(jnp.int32, (16,), 0)
+    row = jnp.where(lane == 15, 1.0, 0.0)
+    for k, val in enumerate(out):
+        row = jnp.where(lane == k, val, row)
+    T_out_ref[...] = row
+    inlier_ref[...] = inlier.astype(jnp.float32)
+
+
+def padded_size(n: int) -> int:
+    """Feature slots as the kernel sees them: the next power of two."""
+    return 1 << max(n - 1, 1).bit_length()
 
 
 @functools.partial(jax.jit,
                    static_argnames=("outer_iters", "inner_iters",
-                                    "interpret"))
+                                    "num_warps", "interpret"))
 def pose_refine_fused(T_init, points, uv, right, weight, mask,
                       cam: Pinhole, bf,
                       chi2_mono: float = 2.1 ** 2,
                       chi2_stereo: float = 2.3 ** 2,
                       outer_iters: int = 2, inner_iters: int = 2,
                       damping: float = 1e-5,
-                      interpret: bool | None = None):
+                      num_warps: int = 8,
+                      interpret: bool = False):
     """One-launch robust pose refine.  Returns (T, inlier_mask, n_inliers).
 
     ``points`` (N, 3), ``uv`` (N, 2), ``right``/``weight`` (N,), ``mask``
-    (N,) bool; N must be a multiple of 128.
+    (N,) bool, any N; the kernel runs on N padded to a power of two.
+    ``interpret`` runs the Pallas interpreter (CPU tests); the default
+    compiles for the GPU through Triton.
     """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     N = points.shape[0]
-    G = N // 128
+    Np = padded_size(N)
     f32 = jnp.float32
     data = jnp.stack([
-        points[:, 0].astype(f32).reshape(G, 128),
-        points[:, 1].astype(f32).reshape(G, 128),
-        points[:, 2].astype(f32).reshape(G, 128),
-        uv[:, 0].astype(f32).reshape(G, 128),
-        uv[:, 1].astype(f32).reshape(G, 128),
-        right.astype(f32).reshape(G, 128),
-        weight.astype(f32).reshape(G, 128),
-        mask.astype(f32).reshape(G, 128),
-    ])
+        points[:, 0], points[:, 1], points[:, 2],
+        uv[:, 0], uv[:, 1], right, weight, mask,
+    ]).astype(f32)
+    data = jnp.pad(data, ((0, 0), (0, Np - N)))
     tc = jnp.concatenate([
-        T_init.reshape(-1).astype(f32),        # [0:16] row-major 4x4
+        T_init.reshape(-1).astype(f32),
         jnp.stack([cam.fx, cam.fy, cam.cx, cam.cy, bf,
                    f32(chi2_mono), f32(chi2_stereo),
-                   f32(damping)]).astype(f32),  # [16:24]
-        jnp.zeros((8,), f32),
-    ]).reshape(1, 32)
+                   f32(damping)]).astype(f32),
+        jnp.zeros((_TC_SIZE - 24,), f32),
+    ])
     T_row, inl = pl.pallas_call(
         functools.partial(_pose_refine_kernel, outer_iters=outer_iters,
                           inner_iters=inner_iters),
-        out_shape=(jax.ShapeDtypeStruct((1, 16), f32),
-                   jax.ShapeDtypeStruct((G, 128), f32)),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM),
-                  pl.BlockSpec(memory_space=pltpu.VMEM)],
-        out_specs=(pl.BlockSpec(memory_space=pltpu.SMEM),
-                   pl.BlockSpec(memory_space=pltpu.VMEM)),
+        out_shape=(jax.ShapeDtypeStruct((16,), f32),
+                   jax.ShapeDtypeStruct((Np,), f32)),
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=num_warps,
+                                                 num_stages=1),
         interpret=interpret,
+        name="pose_refine_fused",
     )(tc, data)
-    T = jnp.concatenate([
-        T_row.reshape(4, 4)[:3],
-        jnp.asarray([[0.0, 0.0, 0.0, 1.0]], dtype=f32),
-    ])
-    inlier = inl.reshape(N) > 0.5
-    return T, inlier, jnp.sum(inlier)
+    inlier = inl[:N] > 0.5
+    return T_row.reshape(4, 4), inlier, jnp.sum(inlier)

@@ -1,10 +1,10 @@
 """Robust pose-only Gauss-Newton solvers + RANSAC PnP, jit-compiled.
 
-TPU-native replacement for saiga's ``RobustPoseOptimization`` /
+JAX replacement for saiga's ``RobustPoseOptimization`` /
 ``RobustSmoothPoseOptimization`` (reference: Snake/Tracking/PoseRefinement.h:
 9-10,102-103) and ``P3PRansac`` (reference: Snake/Tracking/TrackingCoarse.cpp:
 410-422).  All residuals for a frame are evaluated as one batched array; the
-6x6 normal equations are built with einsum reductions (VPU/MXU) and solved
+6x6 normal equations are built with einsum reductions and solved
 densely.  Outlier classification between GN rounds mirrors the reference's
 chi2 thresholds (mono 2.1 px / stereo 2.3 px, Snake/System/SnakeGlobal.h:
 145-146) applied to scale-weighted residuals.
@@ -155,7 +155,7 @@ def robust_pose_refine(
             b = b + w_p * r_p
         H = H + damping * jnp.eye(6, dtype=T.dtype)
         # closed-form 6x6 block solve: fuses into the GN step instead of an
-        # LU custom call (which dominates this tiny solve on TPU)
+        # LU custom call, whose fixed cost dominates this tiny solve
         delta = solve6x6_psd(H, b)
         return lie.orthonormalize(lie.se3_exp(-delta) @ T)
 

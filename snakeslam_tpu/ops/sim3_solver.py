@@ -1,6 +1,6 @@
 """Sim3/SE3 registration RANSAC from 3D-3D correspondences.
 
-TPU-native replacement for saiga's ``RegistrationProjectRANSAC`` used in
+JAX replacement for saiga's ``RegistrationProjectRANSAC`` used in
 loop-closure geometric verification (reference: Snake/LoopClosing/
 LoopDetector.cpp:148-206): batched minimal Horn/Umeyama hypotheses over
 matched map-point pairs, scored by 3D consistency, then polished on the

@@ -1,11 +1,11 @@
 """Batched epipolar matching + triangulation between keyframe pairs.
 
-TPU-native replacement for the reference's Triangulator inner loop
+JAX replacement for the reference's Triangulator inner loop
 (reference: Snake/LocalMapping/Triangulator.cpp:113-294 — per KF-pair
 epipolar BoW-bucketed search, parallax arbitration, DLT, two-sided chi2 and
 scale-consistency gates) and MappingORBMatcher::SearchForTriangulation2
 (Snake/LocalMapping/MappingORBMatcher.cpp:14-102).  The whole candidate
-matrix per pair is evaluated densely on the MXU; the 10-neighbor fan-out is a
+matrix per pair is evaluated densely as matrix products; the 10-neighbor fan-out is a
 vmap over pairs.
 """
 

@@ -1,6 +1,6 @@
 """Batched two-view triangulation (homogeneous DLT).
 
-TPU-native replacement for saiga's ``TriangulateHomogeneous``
+JAX replacement for saiga's ``TriangulateHomogeneous``
 (reference: Snake/LocalMapping/Triangulator.cpp:10,220).  Each candidate
 match triangulates independently — a (B, 4, 4) batched SVD/eigen solve.
 """
@@ -37,9 +37,9 @@ def triangulate_homogeneous(T1: jax.Array, T2: jax.Array, xn1: jax.Array,
     # inhomogeneous DLT: fix w = 1 (finite points; far points come out
     # large and the callers' chi2/parallax/scale gates handle them) and
     # solve the 3x3 normal equations min ||A3 x + b|| in closed form.
-    # A batched 4x4 eigh lowers to an iterative kernel on TPU and costs
-    # ~45 ms per triangulation fan-out; the cofactor solve is pure
-    # elementwise arithmetic and fuses with the rest of the program.
+    # A batched 4x4 eigh lowers to an iterative solver; the cofactor
+    # solve is pure elementwise arithmetic and fuses with the rest of the
+    # program.
     A3 = rows[..., :3]                         # (..., 4, 3)
     b = rows[..., 3]                           # (..., 4)
     N = jnp.swapaxes(A3, -1, -2) @ A3          # (..., 3, 3)

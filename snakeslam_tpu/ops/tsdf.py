@@ -1,12 +1,12 @@
 """TSDF voxel fusion for dense RGBD preview.
 
-TPU-native replacement for saiga's ``VoxelFusion`` used by the reference's
+JAX replacement for saiga's ``VoxelFusion`` used by the reference's
 dense-preview viewer (reference: Snake/Viewer/VisualVoxelFusion.{h,cpp},
 FusionScene).  The truncated signed distance field lives as a dense
 (V, V, V) device array; integrating a depth frame is one fused elementwise
 program (project all voxel centers, sample depth, clamped SDF update with
 running weights) — the classic KinectFusion update, which is exactly the
-kind of regular dense arithmetic the VPU eats.
+kind of regular dense arithmetic XLA fuses into one pass.
 
 Surface export samples the zero crossing by thresholding |tsdf| (dense
 preview parity; full marching cubes is a later round).

@@ -1,7 +1,7 @@
 """Two-view reconstruction: 8-point essential RANSAC, homography RANSAC,
 pose recovery, and the epipolar distance helpers.
 
-TPU-native replacement for saiga's ``TwoViewReconstruction[EightPoint]`` and
+JAX replacement for saiga's ``TwoViewReconstruction[EightPoint]`` and
 ``HomographyRansac`` (reference: Snake/Tracking/Initialization/
 MonoInitializer.h:10-11,147-152 and MonoInitializer.cpp:134-263), and for
 ``EssentialMatrix`` / ``EpipolarDistanceSquared`` (reference:

@@ -43,7 +43,7 @@ import jax
 @jax.jit
 def _realign_batch(Ts, obs, cam, bf):
     """Jitted vmapped pose-only refinement (eager vmap would re-trace
-    per invocation and dispatch op-by-op over the device link)."""
+    per invocation and dispatch op-by-op)."""
     from snakeslam_tpu.ops.pose_solver import robust_pose_refine
 
     return jax.vmap(
@@ -80,16 +80,20 @@ class GlobalBA:
         self.bf = jnp.float32(settings.bf)
         self.pyramid = ScalePyramid.create(settings.fd_levels,
                                            settings.fd_scale_factor)
-        # multi-chip: with n_devices > 1 FullBA runs through the sharded
+        # multi-device: with n_devices > 1 FullBA runs through the sharded
         # dp-mesh solver — points/observations sharded over the mesh, the
-        # reduced camera system psum'ed over ICI (parallel/multichip.py)
+        # reduced camera system psum'ed across devices (parallel/multichip.py)
         self._mesh = None
         self._sharded_fns: dict = {}
-        if getattr(settings, "n_devices", 1) > 1:
-            if len(jax.devices()) >= settings.n_devices:
-                from snakeslam_tpu.parallel import multichip as MC
+        n_devices = getattr(settings, "n_devices", 1)
+        if n_devices > 1:
+            if len(jax.devices()) < n_devices:
+                raise ValueError(
+                    f"n_devices={n_devices} but only {len(jax.devices())} "
+                    f"devices exist")
+            from snakeslam_tpu.parallel import multichip as MC
 
-                self._mesh = MC.make_mesh(settings.n_devices)
+            self._mesh = MC.make_mesh(n_devices)
 
     def _sharded_full_ba(self, problem, iterations: int):
         from snakeslam_tpu.parallel import multichip as MC

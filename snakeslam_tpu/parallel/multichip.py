@@ -1,17 +1,19 @@
-"""Multi-chip execution: device mesh + sharded matching/BA steps.
+"""Multi-device execution: device mesh + sharded matching/BA steps.
 
 The reference is a single-process system with no distributed backend
 (SURVEY.md §2.3); its intra-op OpenMP parallelism maps onto XLA batching on
-one chip.  For multi-chip scaling this module shards the two
+one device.  For multi-device scaling this module shards the two
 embarrassingly-point-parallel workloads over a 1-D ``dp`` mesh axis via
-``jax.shard_map`` with ICI collectives:
+``jax.shard_map`` with XLA collectives (NCCL on GPUs, which reach each
+other all to all, so the mesh follows the algorithm alone):
 
   * Hamming matching: local-map points sharded over ``dp``; each device
     matches its point shard against the (replicated) frame features; the
     conflict-resolving commit runs on the gathered result.
   * Bundle adjustment: points + observations sharded over ``dp``; each
     device builds its partial reduced camera system (Schur) and gradient;
-    one ``psum`` over ICI yields the global 6Cx6C system, solved replicated;
+    one ``psum`` across devices yields the global 6Cx6C system, solved
+    replicated;
     point back-substitution stays local to each shard.
 
 This is the honest parallel decomposition of BA: cameras are the shared
@@ -131,7 +133,7 @@ def sharded_ba_step(mesh: Mesh, cam: Pinhole, bf, n_iters: int = 1,
             S = -S.reshape(C, C, 6, 6)
             S = S.at[jnp.arange(C), jnp.arange(C)].add(Hcc)
 
-            # >>> the ICI collective: reduce partial systems across shards <<<
+            # >>> the collective: reduce partial systems across shards <<<
             S = jax.lax.psum(S, "dp")
             g_hat = jax.lax.psum(g_hat, "dp")
 

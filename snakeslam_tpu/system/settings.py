@@ -70,9 +70,6 @@ class Settings:
     fd_threads: int = 2
     fd_buffer_to_file: bool = False
     fd_relaxed_stereo: bool = True
-    # FAST via the banded Pallas kernel (-1 = auto: on when the backend is
-    # a TPU; 0/1 force off/on) — see ops/orb_pallas.py
-    fd_use_pallas: int = -1
 
     # ====== Tracking (Settings.h:124-136) ======
     kfi_target_matches: int = 180
@@ -93,10 +90,10 @@ class Settings:
     weight_acc_optimization: float = 10.0
     weight_acc_tracking: float = 0.1
 
-    # ====== framework capacities (fixed shapes; TPU-specific) ======
+    # ====== framework capacities (fixed device shapes) ======
     # devices for the sharded global-BA path (parallel/multichip.py):
     # >1 routes GlobalBA.full_ba through the dp-mesh sharded solver
-    # (points/observations sharded, camera system psum'ed over ICI)
+    # (points/observations sharded, camera system psum'ed across devices)
     n_devices: int = 1
     max_keyframes: int = 2048
     max_points: int = 262144
@@ -167,8 +164,7 @@ class Settings:
                    "th_depth"],
         "FeatureDetector": ["fd_features", "fd_scale_factor", "fd_levels",
                             "fd_ini_th_fast", "fd_min_th_fast", "fd_threads",
-                            "fd_buffer_to_file", "fd_relaxed_stereo",
-                            "fd_use_pallas"],
+                            "fd_buffer_to_file", "fd_relaxed_stereo"],
         "Tracking": ["kfi_target_matches", "th_map", "initialization_quality"],
         "IMU": ["enable_imu", "weight_gyro_initialization",
                 "weight_gyro_optimization", "weight_gyro_tracking",

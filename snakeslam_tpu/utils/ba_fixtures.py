@@ -1,4 +1,4 @@
-"""Synthetic BA problem generator (fixtures for tests, bench, dryrun)."""
+"""Synthetic BA problems and maps (fixtures for tests, bench, dryrun)."""
 
 from __future__ import annotations
 
@@ -63,3 +63,45 @@ def make_synthetic_ba_problem(C=8, P=256, M=8, noise_px=0.2, pose_noise=0.01,
            for k, v in BA.empty_rpc().items()},
     )
     return problem, cams_true, pts
+
+
+def make_gba_map(settings, n_feat: int = 64, n_kf: int = 4, n_pts: int = 48,
+                 seed: int = 1):
+    """A SlamMap for GlobalBA: n_kf mono keyframes on a line, n_pts
+    points (perturbed by 5 cm) seen by every keyframe with exact
+    projections.  Needs n_feat >= n_pts.  Returns (map, point ids)."""
+    from snakeslam_tpu.map.slam_map import FrameData, SlamMap
+
+    rng = np.random.default_rng(seed)
+    s = settings
+    smap = SlamMap(max(16, n_kf), max(512, 2 * n_pts), n_feat)
+
+    pts_w = rng.uniform(-4, 4, size=(n_pts, 3)) + np.array([0, 0, 12.0])
+    kf_ids = []
+    for k in range(n_kf):
+        pose = np.eye(4)
+        pose[:3, 3] = [0.2 * k, 0.0, 0.0]
+        pc = pts_w @ pose[:3, :3].T + pose[:3, 3]
+        uv = np.stack([
+            s.fx * pc[:, 0] / pc[:, 2] + s.cx,
+            s.fy * pc[:, 1] / pc[:, 2] + s.cy,
+        ], axis=1)
+        frame = FrameData(
+            frame_id=k, timestamp=0.1 * k,
+            uv=np.zeros((n_feat, 2)), octave=np.zeros(n_feat, np.int32),
+            angle=np.zeros(n_feat),
+            descriptors=rng.integers(0, 256, (n_feat, 32)).astype(np.uint8),
+            right=np.full(n_feat, -1.0), depth=np.full(n_feat, -1.0),
+        )
+        frame.uv[:n_pts] = uv
+        frame.pose_cw = pose
+        kf_ids.append(smap.allocate_keyframe(frame))
+    ids = smap.allocate_points_bulk(
+        pts_w + rng.normal(size=pts_w.shape) * 0.05,
+        rng.integers(0, 256, (n_pts, 32)).astype(np.uint8),
+        kf_ids[0], np.full(n_pts, 12.0), np.zeros(n_pts, np.int32),
+        np.tile(np.array([0, 0, -1.0]), (n_pts, 1)),
+    )
+    for k in kf_ids:
+        smap.add_observations_bulk(k, np.arange(n_pts), ids)
+    return smap, ids

@@ -18,6 +18,7 @@ from pathlib import Path
 import numpy as np
 
 from snakeslam_tpu.map.slam_map import SlamMap
+from snakeslam_tpu.utils.png import write_png
 
 
 @dataclass
@@ -116,25 +117,28 @@ def write_frame_overlay(snap: ViewerFrameSnapshot, path,
     (ViewerFrame::get_image_rgb, ViewerInterface.cpp:15-72): the grayscale
     frame (or a black canvas at ``size``) with map-point matches in green
     and unmatched detections in red."""
-    from PIL import Image, ImageDraw
-
     if snap.image is not None:
         base = np.clip(snap.image, 0, 255).astype(np.uint8)
-        img = Image.fromarray(base, mode="L").convert("RGB")
+        img = np.repeat(base[:, :, None], 3, axis=2)
     else:
         if size is None:
             w = int(snap.uv[:, 0].max()) + 16 if len(snap.uv) else 64
             h = int(snap.uv[:, 1].max()) + 16 if len(snap.uv) else 48
             size = (w, h)
-        img = Image.new("RGB", size, (0, 0, 0))
-    d = ImageDraw.Draw(img)
+        img = np.zeros((size[1], size[0], 3), dtype=np.uint8)
+    # circle outlines: the pixels of a one-pixel ring of the given radius
+    t = np.linspace(0.0, 2.0 * np.pi, max(8 * radius, 8), endpoint=False)
+    ring_u, ring_v = radius * np.cos(t), radius * np.sin(t)
+    H, W = img.shape[:2]
     for (u, v), m in zip(snap.uv, snap.matched):
         color = (0, 220, 60) if m else (220, 50, 50)
-        d.ellipse([u - radius, v - radius, u + radius, v + radius],
-                  outline=color)
+        x = np.rint(u + ring_u).astype(int)
+        y = np.rint(v + ring_v).astype(int)
+        ok = (x >= 0) & (x < W) & (y >= 0) & (y < H)
+        img[y[ok], x[ok]] = color
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    img.save(path)
+    write_png(path, img)
     return path
 
 

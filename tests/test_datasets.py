@@ -277,3 +277,31 @@ def test_zju_loader_and_factory(tmp_path, rng):
     s.sensor_type = SensorType.ZJU
     ds2 = create_dataset(s, tmp_path)
     assert isinstance(ds2, ZjuDataset)
+
+
+@pytest.mark.parametrize("kind", ["gray8", "gray16", "rgb8"])
+def test_png_reader_matches_pillow(tmp_path, rng, kind):
+    """utils/png.read_png decodes what Pillow writes, bit for bit, and
+    to_gray reproduces Pillow's RGB -> L conversion."""
+    from snakeslam_tpu.utils.png import read_png, to_gray, write_png
+
+    tex = _texture(rng)[:H, :W]
+    if kind == "gray8":
+        arr = tex.astype(np.uint8)
+    elif kind == "gray16":
+        arr = (tex.astype(np.uint16) * 257 + np.arange(W, dtype=np.uint16))
+    else:
+        arr = np.stack([tex, np.roll(tex, 7, axis=1), 255 - tex],
+                       axis=2).astype(np.uint8)
+    path = tmp_path / f"{kind}.png"
+    Image.fromarray(arr).save(path)
+    got = read_png(path)
+    assert got.dtype == arr.dtype and got.shape == arr.shape
+    assert np.array_equal(got, arr)
+    if kind == "rgb8":
+        ref = np.asarray(Image.open(path).convert("L"))
+        assert np.array_equal(to_gray(got), ref)
+    # our own writer round-trips through Pillow and through the reader
+    out = write_png(tmp_path / f"{kind}_out.png", arr)
+    assert np.array_equal(np.asarray(Image.open(out)), arr)
+    assert np.array_equal(read_png(out), arr)

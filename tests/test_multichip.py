@@ -119,3 +119,16 @@ def test_sharded_ba_step_converges(rng):
     errs = tba._cam_errs(np.asarray(cam_pose), cams_true)
     assert errs.max() < 1e-3
     assert np.abs(np.asarray(points) - pts_true).max() < 1e-2
+
+
+def test_gba_raises_when_devices_are_missing():
+    """GlobalBA refuses an n_devices larger than the devices that exist
+    instead of quietly running on one."""
+    from snakeslam_tpu.map.slam_map import SlamMap
+    from snakeslam_tpu.optim.gba import GlobalBA
+    from snakeslam_tpu.system.settings import Settings
+
+    s = Settings()
+    s.n_devices = len(jax.devices()) + 1
+    with pytest.raises(ValueError, match="devices"):
+        GlobalBA(s, SlamMap(16, 512, 64))

@@ -81,3 +81,24 @@ def test_point_slot_generation_guard():
     recycled = np.isin(ids2, ids)
     assert recycled.any()
     assert (smap.pt_alloc_gen[ids] != g0).any()
+
+
+@pytest.mark.parametrize("backend,want", [("gpu", "fused"), ("cpu", "xla")])
+def test_default_pose_refine_by_backend(backend, want):
+    """The scan runs the fused Triton kernel only where it compiles."""
+    from snakeslam_tpu.models.window_step import default_pose_refine
+
+    assert default_pose_refine(backend) == want
+
+
+def test_runner_pose_refine_choice():
+    """WindowedRunner takes the backend's default (XLA on the CPU test
+    backend), accepts an explicit choice and rejects unknown names."""
+    s = Settings()
+    s.input_type = InputType.Stereo
+    s.enable_imu = False
+    system = SlamSystem(s)
+    assert WindowedRunner(system).pose_refine == "xla"
+    assert WindowedRunner(system, pose_refine="fused").pose_refine == "fused"
+    with pytest.raises(ValueError):
+        WindowedRunner(system, pose_refine="pallas")
